@@ -16,19 +16,19 @@ import time
 import numpy as np
 
 try:  # prefer the installed package; fall back to a repo checkout
-    import glomargridding_tpu  # noqa: F401
+    import glomargridding_jax  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 
-from glomargridding_tpu.io import load_array
-from glomargridding_tpu.models.kernel_kriging import (
+from glomargridding_jax.io import load_array
+from glomargridding_jax.models.kernel_kriging import (
     months_scan_kriging,
     pad_month_observations,
     variogram_kernel,
 )
-from glomargridding_tpu.ops.variogram import MaternVariogram
+from glomargridding_jax.ops.variogram import MaternVariogram
 
 def _data_dir():
     """Vendored workflow data (examples/data), with the reference
@@ -55,7 +55,7 @@ MONTH = 3
 
 
 def main():
-    from glomargridding_tpu.config import enable_compile_cache
+    from glomargridding_jax.config import enable_compile_cache
 
     enable_compile_cache()  # monthly reruns skip minutes of XLA compile
     esa = load_array(

@@ -1,5 +1,5 @@
 """End-to-end HadSST4 / HadCRUT5 workflow (the reference's canonical
-notebook pipeline, ``notebooks/Ellipse_to_grid.ipynb``), on TPU.
+notebook pipeline, ``notebooks/Ellipse_to_grid.ipynb``), on the device.
 
 Pipeline:
   1. 5-degree global grid; stationary Matern(1.5) covariance from the
@@ -7,7 +7,7 @@ Pipeline:
   2. Ellipse parameter MLE over the full ESA-CCI SST anomaly training
      cube (the reference's 58.4 s laptop hotspot — here one batched
      Nelder-Mead launch).
-  3. Non-stationary covariance assembly (Pallas tile kernel) +
+  3. Non-stationary covariance assembly (tiled XLA kernel) +
      trace-preserving eigenvalue clip + re-inflation to the full grid.
   4. HadCRUT5 observation error covariance (correlated + uncorrelated).
   5. HadSST4 ensemble-member observations mapped to the grid.
@@ -25,27 +25,27 @@ import time
 import numpy as np
 
 try:  # prefer the installed package; fall back to a repo checkout
-    import glomargridding_tpu  # noqa: F401
+    import glomargridding_jax  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from glomargridding_tpu.core.labeled import Coordinates
-from glomargridding_tpu.grid import (
+from glomargridding_jax.core.labeled import Coordinates
+from glomargridding_jax.grid import (
     grid_from_resolution,
     grid_to_distance_matrix,
     map_to_grid,
 )
-from glomargridding_tpu.io import load_array
-from glomargridding_tpu.config import enable_compile_cache
-from glomargridding_tpu.models.ellipse import (
+from glomargridding_jax.io import load_array
+from glomargridding_jax.config import enable_compile_cache
+from glomargridding_jax.models.ellipse import (
     EllipseBuilder,
     EllipseCovarianceBuilder,
     EllipseModel,
 )
-from glomargridding_tpu.models.kriging import OrdinaryKriging
-from glomargridding_tpu.models.stochastic import StochasticKriging
-from glomargridding_tpu.ops.covariance_tools import eigenvalue_clip
-from glomargridding_tpu.ops.variogram import (
+from glomargridding_jax.models.kriging import OrdinaryKriging
+from glomargridding_jax.models.stochastic import StochasticKriging
+from glomargridding_jax.ops.covariance_tools import eigenvalue_clip
+from glomargridding_jax.ops.variogram import (
     MaternVariogram,
     variogram_to_covariance,
 )
@@ -213,7 +213,7 @@ def run(esa_lat_band=None, nm_tol=1e-3, chunk_size=2048):
     # covariances on this month's observations from one factorisation
     # each (models.crossval_from_covariance) — rmse ranks prediction
     # accuracy, mssr ~ 1 means the uncertainty amplitude is calibrated
-    from glomargridding_tpu.models import crossval_from_covariance
+    from glomargridding_jax.models import crossval_from_covariance
 
     cv_stat = crossval_from_covariance(
         cov_stat, grid_idx, grid_obs, error_cov=error_cov
@@ -326,8 +326,7 @@ def save_outputs(out, out_dir):
             labelsize=7, colors="#666"
         )
     fig.suptitle(
-        "HadSST4 / HadCRUT5 workflow, March 2014, 5-degree grid "
-        "(executed on one TPU v5e)",
+        "HadSST4 / HadCRUT5 workflow, March 2014, 5-degree grid",
         fontsize=11,
     )
     fig.tight_layout()

@@ -1,7 +1,7 @@
 """100-member stochastic ensemble at 1-degree (M = 64,800) on ONE chip.
 
 BASELINE.md benchmark config #5. A dense f32 Cholesky factor of the grid
-covariance alone (~17 GB) exceeds a v5e's HBM and the reference cannot
+covariance alone is ~17 GB and the reference cannot
 attempt this size at all. Here:
 
 - simulated states are drawn EXACTLY in the spectral domain: a
@@ -23,7 +23,7 @@ import time
 import numpy as np
 
 try:  # prefer the installed package; fall back to a repo checkout
-    import glomargridding_tpu  # noqa: F401
+    import glomargridding_jax  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
@@ -31,7 +31,7 @@ import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsl
 
-from glomargridding_tpu.ops.sphere import (
+from glomargridding_jax.ops.sphere import (
     SphericalHarmonicSampler,
     matern_correlation,
 )
@@ -60,7 +60,7 @@ def kernel_block(la1, lo1, la2, lo2):
 
 
 def main():
-    from glomargridding_tpu.config import enable_compile_cache
+    from glomargridding_jax.config import enable_compile_cache
 
     enable_compile_cache()  # monthly reruns skip minutes of XLA compile
     lat = jnp.arange(-89.5, 90.0, 180.0 / M_LAT, dtype=jnp.float32)

@@ -1,27 +1,24 @@
 """Non-stationary 1-degree FULL-GLOBE covariance -> repair -> ensemble
 with no f32 dense matrix ever materialised (n = 64,800).
 
-A dense f32 Paciorek-Schervish covariance at this size is ~17 GB — more
-than one chip's HBM, and far beyond the reference's dense-only path
+A dense f32 Paciorek-Schervish covariance at this size is ~17 GB, far
+beyond the reference's dense-only path
 (auto-downgrades to a pair LOOP above 10k points,
 ``ellipse/covariance.py:206-215``). Here:
 
   1. ``ellipse_covariance_operator(store="bf16")`` assembles the
      off-diagonal part block-by-block into a HALF-memory bf16 store
-     (8.4 GB) with the exact diagonal kept f32 — matvecs are single MXU
-     dispatches with f32 accumulation;
+     (8.4 GB) with the exact diagonal kept f32 — matvecs are single bf16
+     matmuls with f32 accumulation;
   2. ``explained_variance_clip_lowrank`` repairs PSD-ness from matvecs
      alone (randomized top-k), returning the factored LowRankPSD;
   3. the bf16 store is FREED, and kriging + a 100-member two-stage
      ensemble run straight off the factors (``models.lowrank``).
 
-Measured (one v5e chip, 2026-08-18): operator assembly 3.2 s,
-low-rank clip 1.8 s warm (trace preserved to 7e-8), kriging + 100
-members 0.06 s warm (one-time compile on first run, persisted by the
-compile cache; the diagonal obs error rides the m^3-free Woodbury
-solve). Self-consistent to three digits: field RMSE vs model-drawn
-truth 0.298 = member spread 0.297 = mean kriging uncertainty 0.296.
-The reference cannot run this size at all.
+Self-consistent to three digits in a full run: field RMSE vs
+model-drawn truth 0.298 = member spread 0.297 = mean kriging
+uncertainty 0.296. The reference cannot run this size at all;
+``chip_smoke.py`` phase C1 runs this path on the GPU against float64.
 
 Run: python examples/nonstationary_65k_lowrank.py
 """
@@ -33,21 +30,21 @@ import time
 import numpy as np
 
 try:  # prefer the installed package; fall back to a repo checkout
-    import glomargridding_tpu  # noqa: F401
+    import glomargridding_jax  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 import jax.numpy as jnp
 
-from glomargridding_tpu.models import lowrank_ensemble_step
-from glomargridding_tpu.models.ellipse.covariance import (
+from glomargridding_jax.models import lowrank_ensemble_step
+from glomargridding_jax.models.ellipse.covariance import (
     ellipse_covariance_operator,
 )
-from glomargridding_tpu.ops.covariance_tools import (
+from glomargridding_jax.ops.covariance_tools import (
     explained_variance_clip_lowrank,
 )
-from glomargridding_tpu.ops.distances import sigma_rot_flat
+from glomargridding_jax.ops.distances import sigma_rot_flat
 
 M_LAT, M_LON = 180, 360
 N_OBS = 5000
@@ -61,7 +58,7 @@ def stage(name, t0):
 
 
 def main():
-    from glomargridding_tpu.config import enable_compile_cache
+    from glomargridding_jax.config import enable_compile_cache
 
     enable_compile_cache()  # monthly reruns skip minutes of XLA compile
     lat = np.arange(-89.5, 90.0, 180.0 / M_LAT, dtype=np.float32)
@@ -192,7 +189,7 @@ def save_outputs(out_dir, **arrays):
         )
     fig.suptitle(
         "1-degree full-globe non-stationary pipeline, n = 64,800 "
-        "(executed on one TPU v5e; no dense covariance ever exists)",
+        "(no dense covariance ever exists)",
         fontsize=11,
     )
     fig.tight_layout()

@@ -7,36 +7,34 @@ covariance assembly refuses >10,000 points and falls back to a pair
 loop — reference ``ellipse/covariance.py:206-215``; a dense f32
 covariance here would be 168 TB, a bf16 store 84 TB, and even one
 f32 eigensolver block of 1024 columns is 26.5 GB). What runs on one
-16 GB v5e:
+card:
 
   1. heterogeneous ellipse parameter fields at 6.48M cells
-     (synthetic spherical-harmonic-style roughness — the measured MLE
-     path at this n is the ``lazy_mle_1M`` bench section's 0.136 s /
-     256-fit chunk, ~1 h whole-grid; this demo spends its wall on the
-     operator stages instead);
+     (synthetic spherical-harmonic-style roughness — the whole-grid
+     MLE at this n is projected from the ``lazy_mle_1M`` bench section
+     at about an hour; this demo spends its wall on the operator
+     stages instead);
   2. the 3000 km-banded zero-storage stream operator: the band plan
      is two O(n log n) ``searchsorted`` passes, and applications run
      as per-group programs (one per row-block group) accumulating
-     ~256 MB column chunks
-     (one all-groups program at this scale crashed the remote worker
-     — `docs/perf.md` "0.1° chunked per-group dispatch"). One warm
-     W=64 application assembles ~13e12 pairs in ~260 s
-     (49-51 G pairs/s, ~74% of the VPU pair-roofline);
+     ~256 MB column chunks. One W=64 application assembles ~13e12
+     pairs;
   3. a REDUCED-RANK PSD repair runs single-chip: rank <= 88 keeps
      every (n, width) eigensolver block ~2.4 GB so the randomized
-     subspace iteration (4 operator sweeps at n_iter=2) fits HBM.
+     subspace iteration (4 operator sweeps at n_iter=2) fits in
+     device memory.
      This is a spectrum CAP, stated plainly: the production-grade
      0.80-variance repair at this n needs rank ~3000 (26 GB+ of
      basis) — that is what `parallel/`'s ring-SUMMA sharded operator
-     + row-sharded basis is for (8-device CPU-mesh tested;
-     `MULTICHIP_r0N.json`). The demo reports the variance fraction
+     + row-sharded basis is for (tested on an 8-device CPU mesh).
+     The demo reports the variance fraction
      its rank actually explains;
   4. kriging + a 100-member two-stage ensemble off the factors
      (Woodbury, diagonal obs error) — linear in n at fixed rank.
 
-Wall-clock is dominated by the ~260-310 s operator sweeps: expect
-~25-35 min end-to-end warm (each of the repair's 4 sweeps + the
-demonstration matvec is one full pass over ~13e12 pairs).
+Wall-clock is dominated by the operator sweeps (each of the repair's
+4 sweeps + the demonstration matvec is one full pass over ~13e12
+pairs); on the GPU the walls are not measured yet.
 
 Run: python examples/nonstationary_tenth_degree.py
 Env:  GLOMAR_SAVE_OUTPUTS=<dir>   store .npz + stage walls
@@ -50,22 +48,22 @@ import time
 import numpy as np
 
 try:  # prefer the installed package; fall back to a repo checkout
-    import glomargridding_tpu  # noqa: F401
+    import glomargridding_jax  # noqa: F401
 except ImportError:
     sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import jax
 import jax.numpy as jnp
 
-from glomargridding_tpu.config import enable_compile_cache
-from glomargridding_tpu.models.ellipse.covariance import (
+from glomargridding_jax.config import enable_compile_cache
+from glomargridding_jax.models.ellipse.covariance import (
     ellipse_covariance_operator,
 )
-from glomargridding_tpu.models import lowrank_ensemble_step
-from glomargridding_tpu.ops.covariance_tools import (
+from glomargridding_jax.models import lowrank_ensemble_step
+from glomargridding_jax.ops.covariance_tools import (
     explained_variance_clip_lowrank,
 )
-from glomargridding_tpu.ops.distances import sigma_rot_flat
+from glomargridding_jax.ops.distances import sigma_rot_flat
 
 SMALL = "--small" in sys.argv  # 2-degree smoke run (CPU-friendly)
 M_LAT, M_LON = (90, 180) if SMALL else (1800, 3600)
@@ -154,10 +152,9 @@ def main():
     t0 = stage("W=64 operator application (warm)", t0)
 
     # reduced-rank repair: plain-callable wrapper ON PURPOSE — the
-    # Matvec fast path would fuse all 4 sweeps into ONE program,
-    # which at a ~300 s/sweep scale the remote worker does not
-    # survive; the host-level loop dispatches each sweep's
-    # per-group programs instead.
+    # Matvec fast path would fuse all 4 sweeps into ONE program that
+    # runs for many minutes; the host-level loop dispatches each
+    # sweep's per-group programs instead.
     k_cap = int(os.environ.get("GLOMAR_TENTH_RANK", "88"))
     psd = explained_variance_clip_lowrank(
         lambda x: mv(x), n=n_op, trace=trace,

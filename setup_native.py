@@ -3,11 +3,11 @@
 from setuptools import Extension, setup
 
 setup(
-    name="glomargridding-tpu-native",
+    name="glomargridding-jax-native",
     ext_modules=[
         Extension(
-            "glomargridding_tpu.native._gridbin",
-            sources=["glomargridding_tpu/native/gridbin.c"],
+            "glomargridding_jax.native._gridbin",
+            sources=["glomargridding_jax/native/gridbin.c"],
             extra_compile_args=["-O3"],
         )
     ],

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from glomargridding_tpu.ops.covariance_tools import (
+from glomargridding_jax.ops.covariance_tools import (
     check_symmetric,
     clean_small,
     csum_up_to_val,
@@ -156,7 +156,7 @@ def test_lowrank_trace_exact_for_scaled_vectors(rng):
     laloux clip scales columns by sqrt(diag)."""
     import jax.numpy as jnp
 
-    from glomargridding_tpu.ops.covariance_tools import (
+    from glomargridding_jax.ops.covariance_tools import (
         LowRankPSD,
         laloux_clip_lowrank,
     )
@@ -186,7 +186,7 @@ def test_auto_spectrum_falls_back_on_flat_spectrum(rng, monkeypatch):
     """spectrum='auto' on a dense matrix whose spectrum is too flat for
     the low-rank path must fall back to the exact full clip instead of
     raising (0.1.0 behaviour)."""
-    import glomargridding_tpu.ops.covariance_tools as ct
+    import glomargridding_jax.ops.covariance_tools as ct
 
     # drop the auto threshold so n=300 genuinely takes the PARTIAL
     # path first (the branch under test), then falls back
@@ -218,7 +218,7 @@ def test_lowrank_clip_full_rank_no_division_error(rng):
     return the exact factorisation, not divide by (n - n)."""
     import jax.numpy as jnp
 
-    from glomargridding_tpu.ops.covariance_tools import (
+    from glomargridding_jax.ops.covariance_tools import (
         explained_variance_clip_lowrank,
     )
 

@@ -6,18 +6,18 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from glomargridding_tpu.core.labeled import (
+from glomargridding_jax.core.labeled import (
     Coordinates,
     DataArray,
     Dataset,
     select_bounds,
 )
-from glomargridding_tpu.io import save_dataset, add_empty_layers, open_dataset
-from glomargridding_tpu.models.stochastic import (
+from glomargridding_jax.io import save_dataset, add_empty_layers, open_dataset
+from glomargridding_jax.models.stochastic import (
     mv_normal_draw,
     scipy_mv_normal_draw,
 )
-from glomargridding_tpu.models.ellipse.model import (
+from glomargridding_jax.models.ellipse.model import (
     cov_ij_anisotropic,
     cov_ij_isotropic,
 )
@@ -142,7 +142,7 @@ def test_cov_ij_kernels_vs_scipy(rng):
 
 
 def test_weights_unsorted_gridboxes():
-    from glomargridding_tpu.ops.error_covariance import dist_weight, get_weights
+    from glomargridding_jax.ops.error_covariance import dist_weight, get_weights
 
     df = pd.DataFrame(
         {
@@ -165,7 +165,7 @@ def test_weights_unsorted_gridboxes():
 def test_config_default_dtype():
     import jax.numpy as jnp
 
-    from glomargridding_tpu.config import (
+    from glomargridding_jax.config import (
         default_dtype,
         default_dtype_ctx,
         set_default_dtype,
@@ -179,17 +179,43 @@ def test_config_default_dtype():
     assert default_dtype() == jnp.dtype(jnp.float32)
 
 
-def test_enable_compile_cache(tmp_path):
-    """The persistent-cache helper points JAX at the requested dir."""
+def test_enable_compile_cache(monkeypatch):
+    """With JAX_COMPILATION_CACHE_DIR unset, the cache goes to the fixed
+    ``.jax_cache`` directory of the checkout (the path is part of the
+    cache key, so it must not move between runs)."""
+    import os
+
     import jax
 
-    from glomargridding_tpu.config import enable_compile_cache
+    from glomargridding_jax import config
 
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
     prev = jax.config.jax_compilation_cache_dir
     try:
-        p = enable_compile_cache(str(tmp_path / "xla"))
-        assert (tmp_path / "xla").is_dir()
+        p = config.enable_compile_cache()
+        assert p == config.CHECKOUT_CACHE_DIR
+        root = os.path.dirname(os.path.dirname(config.__file__))
+        assert p == os.path.join(root, ".jax_cache")
+        assert os.path.isdir(p)
         assert jax.config.jax_compilation_cache_dir == p
+    finally:
+        jax.config.update("jax_compilation_cache_dir", prev)
+
+
+def test_enable_compile_cache_honours_env(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, JAX's own setting is left
+    alone and the helper reports that directory."""
+    import jax
+
+    from glomargridding_jax import config
+
+    want = str(tmp_path / "from_env")
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", want)
+    prev = jax.config.jax_compilation_cache_dir
+    try:
+        jax.config.update("jax_compilation_cache_dir", "sentinel")
+        assert config.enable_compile_cache() == want
+        assert jax.config.jax_compilation_cache_dir == "sentinel"
     finally:
         jax.config.update("jax_compilation_cache_dir", prev)
 
@@ -200,7 +226,7 @@ def test_clip_rank_multiple_pads_shapes(rng):
     import jax
     import jax.numpy as jnp
 
-    from glomargridding_tpu.ops.covariance_tools import (
+    from glomargridding_jax.ops.covariance_tools import (
         explained_variance_clip_lowrank,
     )
 

@@ -8,7 +8,7 @@ from scipy.spatial.transform import Rotation
 from sklearn.metrics.pairwise import euclidean_distances, haversine_distances
 
 import jax.numpy as jnp
-from glomargridding_tpu.ops.distances import (
+from glomargridding_jax.ops.distances import (
     cartesian_euclidean_matrix,
     displacements,
     euclidean_matrix,
@@ -166,7 +166,7 @@ def test_tmerc_forward_meridian_arc():
     """
     from scipy.integrate import quad
 
-    from glomargridding_tpu.ops.distances import (
+    from glomargridding_jax.ops.distances import (
         WGS84_A_KM,
         WGS84_F,
         tmerc_forward,
@@ -196,7 +196,7 @@ def test_tmerc_forward_meridian_arc():
 def test_tmerc_forward_small_easting_limit():
     """For small dlon, easting -> k0 * N(phi) * cos(phi) * dlam where
     N is the prime-vertical curvature radius (first-order TM property)."""
-    from glomargridding_tpu.ops.distances import (
+    from glomargridding_jax.ops.distances import (
         WGS84_A_KM,
         WGS84_F,
         tmerc_forward,
@@ -249,7 +249,7 @@ def test_asin_poly_accuracy():
     import jax
     import jax.numpy as jnp
 
-    from glomargridding_tpu.ops.distances import asin_poly
+    from glomargridding_jax.ops.distances import asin_poly
 
     x64 = np.linspace(0.0, 1.0, 20001)
     if jax.config.jax_enable_x64:

@@ -6,15 +6,15 @@ import os
 import numpy as np
 import pytest
 
-from glomargridding_tpu.core.labeled import Coordinates
-from glomargridding_tpu.io import open_dataset
-from glomargridding_tpu.models.ellipse import (
+from glomargridding_jax.core.labeled import Coordinates
+from glomargridding_jax.io import open_dataset
+from glomargridding_jax.models.ellipse import (
     EllipseBuilder,
     EllipseCovarianceBuilder,
     EllipseModel,
 )
-from glomargridding_tpu.ops.covariance_tools import eigenvalue_clip
-from glomargridding_tpu.utils.arrays import cov_2_cor, uncompress_masked
+from glomargridding_jax.ops.covariance_tools import eigenvalue_clip
+from glomargridding_jax.utils.arrays import cov_2_cor, uncompress_masked
 
 from conftest import reference_data_path, requires_reference_data
 
@@ -533,7 +533,7 @@ def test_compute_params_lbfgs_matches_nm(rng):
 
 def test_cov_builder_lazy_parity_attrs(rng):
     """sigmas / sqrt_dets are computed lazily and match Sigma = R L R'."""
-    from glomargridding_tpu.models.ellipse.covariance import (
+    from glomargridding_jax.models.ellipse.covariance import (
         EllipseCovarianceBuilder,
     )
 
@@ -564,7 +564,7 @@ def test_cov_builder_lazy_parity_attrs(rng):
 def test_vectorised_postprocess_matches_scalar_semantics(rng):
     """The vectorised compute_params post-processing must agree with the
     scalar _check_params + _get_fit_score pipeline point by point."""
-    from glomargridding_tpu.models.ellipse.estimate import _get_fit_score
+    from glomargridding_jax.models.ellipse.estimate import _get_fit_score
 
     builder, lats, lons = _synthetic_builder(rng, size=(6, 8), n=2000)
     model = EllipseModel(
@@ -670,11 +670,11 @@ def test_compute_params_max_train_cols_exact_when_window_covered():
 
 def test_ellipse_covariance_operator_matches_dense(rng):
     """Streamed and bf16 matvec forms vs the dense assembly."""
-    from glomargridding_tpu.models.ellipse.covariance import (
+    from glomargridding_jax.models.ellipse.covariance import (
         build_ellipse_covariance,
         ellipse_covariance_operator,
     )
-    from glomargridding_tpu.ops.distances import sigma_rot_flat
+    from glomargridding_jax.ops.distances import sigma_rot_flat
     import jax.numpy as jnp
 
     n = 300
@@ -690,7 +690,7 @@ def test_ellipse_covariance_operator_matches_dense(rng):
 
     dense = np.asarray(
         build_ellipse_covariance(
-            lats, lons, sig, sqd, sd, v=1.5, use_pallas=False
+            lats, lons, sig, sqd, sd, v=1.5
         ),
         dtype=np.float64,
     )
@@ -714,26 +714,13 @@ def test_ellipse_covariance_operator_matches_dense(rng):
     got16 = np.asarray(mv16(jnp.asarray(X)))
     scale = np.abs(dense @ X).max()
     assert np.abs(got16 - dense @ X).max() / scale < 2e-2
-
-    # symmetric-Pallas bf16 build (interpret mode on CPU): the padded
-    # (n_pad, n_pad) store + zero-padded matvec must match the scan
-    # build's result at bf16 accuracy
-    mv_sym, n_sym, trace_sym = ellipse_covariance_operator(
-        lats, lons, sig, sqd, sd, v=1.5, store="bf16",
-        assemble="pallas",
-    )
-    assert n_sym == n
-    assert trace_sym == pytest.approx(trace, rel=1e-6)
-    got_sym = np.asarray(mv_sym(jnp.asarray(X)))
-    assert np.abs(got_sym - dense @ X).max() / scale < 2e-2
-    got_sym1 = np.asarray(mv_sym(jnp.asarray(X[:, 0])))
+    got16_1 = np.asarray(mv16(jnp.asarray(X[:, 0])))
     np.testing.assert_allclose(
-        got_sym1, got_sym[:, 0], rtol=1e-6, atol=1e-6
+        got16_1, got16[:, 0], rtol=1e-6, atol=1e-6
     )
-    with pytest.raises(ValueError, match="half-integer"):
+    with pytest.raises(ValueError, match="Unknown store"):
         ellipse_covariance_operator(
-            lats, lons, sig, sqd, sd, v=1.2, store="bf16",
-            assemble="pallas",
+            lats, lons, sig, sqd, sd, v=1.5, store="dense"
         )
 
 
@@ -743,15 +730,15 @@ def test_operator_clip_to_lowrank_ensemble(rng):
     import jax
     import jax.numpy as jnp
 
-    from glomargridding_tpu.models.ellipse.covariance import (
+    from glomargridding_jax.models.ellipse.covariance import (
         build_ellipse_covariance,
         ellipse_covariance_operator,
     )
-    from glomargridding_tpu.models.lowrank import lowrank_kriging
-    from glomargridding_tpu.ops.covariance_tools import (
+    from glomargridding_jax.models.lowrank import lowrank_kriging
+    from glomargridding_jax.ops.covariance_tools import (
         explained_variance_clip_lowrank,
     )
-    from glomargridding_tpu.ops.distances import sigma_rot_flat
+    from glomargridding_jax.ops.distances import sigma_rot_flat
 
     n = 400
     lats = jnp.radians(
@@ -777,7 +764,7 @@ def test_operator_clip_to_lowrank_ensemble(rng):
         k0=64, max_rank=256,
     )
     dense = build_ellipse_covariance(
-        lats, lons, sig, sqd, sd, v=1.5, use_pallas=False
+        lats, lons, sig, sqd, sd, v=1.5
     )
     psd_dense = explained_variance_clip_lowrank(
         dense, target_variance_fraction=0.9, key=jax.random.key(0),
@@ -806,11 +793,11 @@ def test_operator_recreation_hits_jit_cache(rng):
     closures."""
     import jax.numpy as jnp
 
-    from glomargridding_tpu.models.ellipse.covariance import (
+    from glomargridding_jax.models.ellipse.covariance import (
         _operator_build,
         ellipse_covariance_operator,
     )
-    from glomargridding_tpu.ops.distances import sigma_rot_flat
+    from glomargridding_jax.ops.distances import sigma_rot_flat
 
     n = 96
     lats = jnp.asarray(np.radians(rng.uniform(-60, 60, n)), jnp.float32)
@@ -913,7 +900,7 @@ def test_lazy_cor_matches_dense_compute_params(rng):
     dense_b = EllipseBuilder(data, coords, cor_mode="dense")
     lazy_b = EllipseBuilder(data, coords, cor_mode="lazy")
 
-    from glomargridding_tpu.models.ellipse.estimate import _LazyCorrelation
+    from glomargridding_jax.models.ellipse.estimate import _LazyCorrelation
 
     assert isinstance(lazy_b.cor, _LazyCorrelation)
     assert not isinstance(dense_b.cor, _LazyCorrelation)
@@ -1037,7 +1024,7 @@ def test_compute_params_checkpoint_resume(rng, tmp_path):
         chunk_size=16,
     )
 
-    import glomargridding_tpu.models.ellipse.estimate as est
+    import glomargridding_jax.models.ellipse.estimate as est
 
     # Count GROUP DISPATCHES (with dispatch_chunks=1, one per chunk) by
     # wrapping the cached group-fit program; the per-chunk work itself
@@ -1297,11 +1284,11 @@ def test_banded_stream_operator_exact_vs_dense(rng):
     masked covariance (omitted tiles are exact zeros)."""
     import jax.numpy as jnp
 
-    from glomargridding_tpu.models.ellipse.covariance import (
+    from glomargridding_jax.models.ellipse.covariance import (
         build_ellipse_covariance,
         ellipse_covariance_operator,
     )
-    from glomargridding_tpu.ops.distances import sigma_rot_flat
+    from glomargridding_jax.ops.distances import sigma_rot_flat
 
     n = 700
     # lat-SORTED points (the grid compression order) so banding bites
@@ -1321,7 +1308,7 @@ def test_banded_stream_operator_exact_vs_dense(rng):
     dense = np.asarray(
         build_ellipse_covariance(
             lats, lons, sig, sqd, sd, v=1.5,
-            max_dist=max_dist, use_pallas=False,
+            max_dist=max_dist,
         ),
         dtype=np.float64,
     )
@@ -1351,8 +1338,8 @@ def test_grouped_chunked_stream_exact(rng, monkeypatch):
     contribute exact zeros."""
     import jax.numpy as jnp
 
-    from glomargridding_tpu.models.ellipse import covariance as cov
-    from glomargridding_tpu.ops.distances import sigma_rot_flat
+    from glomargridding_jax.models.ellipse import covariance as cov
+    from glomargridding_jax.ops.distances import sigma_rot_flat
 
     n = 1500
     lats_deg = np.sort(rng.uniform(-75, 75, n)).astype(np.float32)
@@ -1401,7 +1388,7 @@ def test_grouped_chunked_stream_exact(rng, monkeypatch):
     dense = np.asarray(
         cov.build_ellipse_covariance(
             lats, lons, sig, sqd, sd, v=1.5,
-            max_dist=1500.0, use_pallas=False,
+            max_dist=1500.0,
         ),
         dtype=np.float64,
     )
@@ -1414,7 +1401,7 @@ def test_interval_windows_sorted_matches_pairwise(rng):
     """The O(n log n) searchsorted window path (lat-sorted column
     intervals — every lat-major grid) must return exactly the windows
     of the O(n^2) pairwise scan; unsorted input takes the fallback."""
-    from glomargridding_tpu.models.ellipse.covariance import (
+    from glomargridding_jax.models.ellipse.covariance import (
         _interval_windows,
     )
 
@@ -1468,9 +1455,10 @@ def test_interval_windows_sorted_matches_pairwise(rng):
 
 def test_band_plan_certificates(rng):  # noqa: C901
     """The latitude-gap band plan: windows cover every pair within the
-    cutoff, hi is upper-triangular and >= the diagonal."""
-    from glomargridding_tpu.constants import RADIUS_OF_EARTH_KM
-    from glomargridding_tpu.models.ellipse.covariance import (
+    cutoff, and each row block's [first, last] kernel band holds the
+    diagonal and every column block within the cutoff."""
+    from glomargridding_jax.constants import RADIUS_OF_EARTH_KM
+    from glomargridding_jax.models.ellipse.covariance import (
         _stream_band_plan,
     )
 
@@ -1479,19 +1467,20 @@ def test_band_plan_certificates(rng):  # noqa: C901
     pad = (-n) % block
     lat_pad = np.pad(lat, (0, pad), mode="edge")
     md = 800.0
-    col_starts, bw, hi = _stream_band_plan(
+    col_starts, bw, first, last = _stream_band_plan(
         lat_pad, lat, n, block, md, chunk, chunk_p
     )
     n_blocks = len(lat_pad) // block
     assert col_starts.shape == (n_blocks,)
     n_p = -(-n // chunk_p)
-    assert hi.shape == (n_p,)
-    assert (hi >= np.arange(n_p)).all()
-    assert (hi <= n_p - 1).all()
+    assert first.shape == last.shape == (n_p,)
+    assert (first <= np.arange(n_p)).all()
+    assert (last >= np.arange(n_p)).all()
+    assert (first >= 0).all() and (last <= n_p - 1).all()
     # at this density the window must actually narrow (that is the
     # whole point of the plan)
     assert bw < n // 2, bw
-    assert (hi - np.arange(n_p)).max() + 1 < n_p
+    assert (last - first).max() + 1 < n_p
 
     thresh = md / RADIUS_OF_EARTH_KM
     # brute-force: every (row point, col point) pair within the cutoff
@@ -1506,28 +1495,35 @@ def test_band_plan_certificates(rng):  # noqa: C901
                 col_starts[b] == 0
             )
             assert cols_needed.max() < col_starts[b] + bw
-    # hi certificate at chunk_p granularity
+    # kernel band certificate at chunk_p granularity
     ppad = n_p * chunk_p - n
     latp = np.pad(lat, (0, ppad), mode="edge").reshape(n_p, chunk_p)
     for i in range(n_p):
-        for j in range(i, n_p):
-            gap = max(0.0, latp[j].min() - latp[i].max())
+        for j in range(n_p):
+            gap = max(
+                0.0,
+                latp[j].min() - latp[i].max(),
+                latp[i].min() - latp[j].max(),
+            )
             if gap <= thresh:
-                assert hi[i] >= j, (i, j)
+                assert first[i] <= j <= last[i], (i, j)
 
 
 def test_ellipse_matvec_pallas_interpret(rng):
-    """The fused symmetric Pallas matvec (interpret mode off-TPU) ==
-    dense covariance product, banded and unbanded."""
+    """The fused Triton matvec kernel (Pallas interpreter off the GPU),
+    driven with the operator's own band plan == dense covariance
+    product, banded and unbanded."""
     import jax.numpy as jnp
 
-    from glomargridding_tpu.models.ellipse.covariance import (
+    from glomargridding_jax.models.ellipse.covariance import (
         _stream_band_plan,
         build_ellipse_covariance,
     )
-    from glomargridding_tpu.ops.distances import sigma_rot_flat
-    from glomargridding_tpu.ops.pallas import ellipse_matvec_pallas
-    from glomargridding_tpu.ops.pallas.pairwise import TILE_P
+    from glomargridding_jax.models.ellipse.stream_kernel import (
+        BLOCK,
+        ellipse_matvec,
+    )
+    from glomargridding_jax.ops.distances import sigma_rot_flat
 
     n = 1300
     lats_deg = np.sort(rng.uniform(-70, 70, n)).astype(np.float32)
@@ -1539,43 +1535,43 @@ def test_ellipse_matvec_pallas_interpret(rng):
     th = jnp.asarray(rng.uniform(-0.5, 0.5, n), jnp.float32)
     sd = jnp.asarray(rng.uniform(0.5, 1.5, n), jnp.float32)
     s00, s01, _, s11 = sigma_rot_flat(Lx, Ly, th)
-    sig = jnp.stack([s00, s01, s11], axis=-1)
     sqd = jnp.sqrt(s00 * s11 - s01 * s01)
+    sig = jnp.stack([s00, s01, s11], axis=-1)
 
-    n_p = -(-n // TILE_P)
-    n_pad = n_p * TILE_P
-    cpad = n_pad - n
+    n_p = -(-n // BLOCK)
+    cpad = n_p * BLOCK - n
 
     def padded(a):
-        widths = [(0, cpad)] + [(0, 0)] * (a.ndim - 1)
-        return jnp.pad(a, widths, mode="edge")
+        return jnp.pad(a, (0, cpad), mode="edge")
 
+    cols = tuple(padded(a) for a in (lats, lons, s00, s01, s11, sqd, sd))
     X = rng.normal(size=(n, 3)).astype(np.float32)
     Xp = jnp.pad(jnp.asarray(X), ((0, cpad), (0, 0)))
 
     for max_dist in (None, 2500.0):
         dense = np.asarray(
             build_ellipse_covariance(
-                lats, lons, sig, sqd, sd, v=1.5,
-                max_dist=max_dist, use_pallas=False,
+                lats, lons, sig, sqd, sd, v=1.5, max_dist=max_dist,
             ),
             dtype=np.float64,
         )
         md = 0.0 if max_dist is None else max_dist
         if max_dist is None:
-            hi = np.full(n_p, n_p - 1, np.int32)
+            first = np.zeros(n_p, np.int32)
+            last = np.full(n_p, n_p - 1, np.int32)
         else:
             lat_np = np.asarray(lats, np.float64)
-            _, _, hi = _stream_band_plan(
+            _, _, first, last = _stream_band_plan(
                 np.pad(lat_np, (0, cpad), mode="edge"),
-                lat_np, n, TILE_P, md, 256, TILE_P,
+                lat_np, n, BLOCK, md, 256, BLOCK,
             )
-        bwu = int((hi - np.arange(n_p)).max() + 1)
-        y = ellipse_matvec_pallas(
-            padded(lats), padded(lons), padded(sig),
-            padded(sqd), padded(sd), Xp, jnp.asarray(hi),
-            v=1.5, max_dist=md, bwu=bwu,
+            assert (last - first + 1).sum() < n_p * n_p
+        y = ellipse_matvec(
+            cols, Xp, first, last,
+            kparams=(1.5, "Modified_Met_Office", md, max_dist is not None),
+            interpret=True,
         )
+        assert y.shape == (n_p * BLOCK, 3)
         got = np.asarray(y[:n]) + np.asarray(sd)[:, None] ** 2 * X
         want = dense @ X
         scale = np.abs(want).max()
@@ -1585,7 +1581,7 @@ def test_ellipse_matvec_pallas_interpret(rng):
 def test_group_windows_cover_and_clamp():
     """Group windows cover every member row block's window and stay
     inside the padded column range."""
-    from glomargridding_tpu.models.ellipse.covariance import (
+    from glomargridding_jax.models.ellipse.covariance import (
         _group_windows,
     )
 

@@ -4,7 +4,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from glomargridding_tpu.ops.error_covariance import (
+from glomargridding_jax.ops.error_covariance import (
     correlated_components,
     dist_weight,
     get_weights,
@@ -89,7 +89,7 @@ def test_dist_weight_blocks(obs_df):
 
 
 def test_gridbox_error_covariance(obs_df):
-    from glomargridding_tpu.ops.error_covariance import (
+    from glomargridding_jax.ops.error_covariance import (
         gridbox_error_covariance,
     )
 

@@ -4,7 +4,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from glomargridding_tpu.grid import (
+from glomargridding_jax.grid import (
     assign_to_grid,
     cross_coords,
     grid_from_resolution,
@@ -97,7 +97,7 @@ def test_distance_matrix_carries_crossed_coords():
     crossed per-axis coordinates (reference grid.py:233-320 returns them
     as non-dim xarray coordinates) ride in attrs['crossed_coords'] with
     identical content."""
-    from glomargridding_tpu.grid import (
+    from glomargridding_jax.grid import (
         cross_coords,
         grid_from_resolution,
         grid_to_distance_matrix,

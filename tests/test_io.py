@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from glomargridding_tpu.core.labeled import Coordinates, DataArray, Dataset
-from glomargridding_tpu.io import (
+from glomargridding_jax.core.labeled import Coordinates, DataArray, Dataset
+from glomargridding_jax.io import (
     load_array,
     load_covariance,
     load_dataset,
@@ -140,8 +140,8 @@ def test_lowrank_roundtrip(tmp_path, rng):
     """save_lowrank/load_lowrank: factored covariance persists exactly."""
     import jax.numpy as jnp
 
-    from glomargridding_tpu.io import load_lowrank, save_lowrank
-    from glomargridding_tpu.ops.covariance_tools import LowRankPSD
+    from glomargridding_jax.io import load_lowrank, save_lowrank
+    from glomargridding_jax.ops.covariance_tools import LowRankPSD
 
     n, r = 60, 5
     Q, _ = np.linalg.qr(rng.normal(size=(n, r)))

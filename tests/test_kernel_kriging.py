@@ -5,15 +5,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from glomargridding_tpu.models.kernel_kriging import (
+from glomargridding_jax.models.kernel_kriging import (
     ensemble_from_kernel,
     kriging_from_kernel,
     months_scan_kriging,
     variogram_kernel,
 )
-from glomargridding_tpu.models.kriging import OrdinaryKriging, SimpleKriging
-from glomargridding_tpu.ops.distances import haversine_matrix
-from glomargridding_tpu.ops.variogram import MaternVariogram
+from glomargridding_jax.models.kriging import OrdinaryKriging, SimpleKriging
+from glomargridding_jax.ops.distances import haversine_matrix
+from glomargridding_jax.ops.variogram import MaternVariogram
 
 
 def _grid_problem(rng, n_lat=12, n_lon=24, n_obs=20):
@@ -160,7 +160,7 @@ def test_kernel_distance_variants(rng):
 
 
 def test_pad_month_observations(rng):
-    from glomargridding_tpu.models.kernel_kriging import (
+    from glomargridding_jax.models.kernel_kriging import (
         pad_month_observations,
     )
 
@@ -209,7 +209,7 @@ def test_variogram_kernel_hashes_by_value():
 def test_kriging_crossval_matches_bruteforce(rng, method):
     """The one-factorisation LOO identity must equal literally refitting
     with each observation removed."""
-    from glomargridding_tpu.models.kernel_kriging import kriging_crossval
+    from glomargridding_jax.models.kernel_kriging import kriging_crossval
 
     glat, glon, idx, obs, err = _grid_problem(rng, n_obs=14)
     vario = MaternVariogram(psill=1.2, nugget=0.0, range=2000.0, nu=1.5)
@@ -262,7 +262,7 @@ def test_kriging_crossval_calibration(rng):
     """Data drawn FROM the model scores mssr ~ 1; a too-small amplitude
     model scores mssr >> 1 (underestimated uncertainty) — the model-
     selection contract."""
-    from glomargridding_tpu.models.kernel_kriging import kriging_crossval
+    from glomargridding_jax.models.kernel_kriging import kriging_crossval
 
     n_lat, n_lon = 10, 20
     lat = np.arange(-81.0, 90, 180.0 / n_lat)
@@ -299,7 +299,7 @@ def test_kriging_crossval_calibration(rng):
 
 def test_crossval_from_covariance_matches_kernel(rng):
     """Dense-covariance CV == kernel CV for the same model."""
-    from glomargridding_tpu.models.kernel_kriging import (
+    from glomargridding_jax.models.kernel_kriging import (
         crossval_from_covariance,
         kriging_crossval,
     )

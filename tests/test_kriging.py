@@ -12,12 +12,12 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from glomargridding_tpu.grid import (
+from glomargridding_jax.grid import (
     grid_from_resolution,
     grid_to_distance_matrix,
     map_to_grid,
 )
-from glomargridding_tpu.models.kriging import (
+from glomargridding_jax.models.kriging import (
     OrdinaryKriging,
     SimpleKriging,
     _extended_inverse,
@@ -25,9 +25,9 @@ from glomargridding_tpu.models.kriging import (
     kriging_ordinary,
     kriging_simple,
 )
-from glomargridding_tpu.models.stochastic import StochasticKriging
-from glomargridding_tpu.ops.distances import cartesian_euclidean_from_frame
-from glomargridding_tpu.ops.variogram import MaternVariogram
+from glomargridding_jax.models.stochastic import StochasticKriging
+from glomargridding_jax.ops.distances import cartesian_euclidean_from_frame
+from glomargridding_jax.ops.variogram import MaternVariogram
 
 from conftest import reference_data_path, requires_reference_data
 
@@ -303,7 +303,7 @@ def test_stochastic_requires_error_cov():
 
 
 def test_prep_obs_for_kriging():
-    from glomargridding_tpu.models.kriging import prep_obs_for_kriging
+    from glomargridding_jax.models.kriging import prep_obs_for_kriging
 
     unmask_idx = np.array([0, 3, 5, 7, 9])
     unique_obs_idx = np.array([3, 7])
@@ -349,8 +349,8 @@ def test_kriging_exact_at_obs_without_error():
 def test_precompute_states_both_routes(rng):
     import jax
 
-    from glomargridding_tpu.models.stochastic import precompute_states
-    from glomargridding_tpu.ops.sphere import matern_correlation
+    from glomargridding_jax.models.stochastic import precompute_states
+    from glomargridding_jax.ops.sphere import matern_correlation
 
     # dense route
     pts = rng.uniform(0, 1, size=(40, 2))
@@ -399,7 +399,7 @@ def test_cov_device_cache_is_bounded(rng):
     """Solvers over many DISTINCT covariances must not grow the device
     cache unboundedly (round-1 leak: weakref.finalize on np.ndarray always
     raises, so nothing ever evicted)."""
-    from glomargridding_tpu.models.kriging import _COV_DEVICE_CACHE
+    from glomargridding_jax.models.kriging import _COV_DEVICE_CACHE
 
     _COV_DEVICE_CACHE.clear()
     n = 16
@@ -553,10 +553,10 @@ def test_stochastic_textbook_uncertainty(rng):
 def test_batched_ensemble_step_non_pd_rescue(rng):
     """batched_ensemble_step must rescue a merely near-PSD covariance
     (the normal case for clipped/estimated inputs) instead of emitting
-    all-NaN members (VERDICT r3 weak #4)."""
+    all-NaN members."""
     import jax
 
-    from glomargridding_tpu.models.stochastic import batched_ensemble_step
+    from glomargridding_jax.models.stochastic import batched_ensemble_step
 
     n = 40
     A = rng.normal(size=(n, 8))

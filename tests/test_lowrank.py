@@ -12,13 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from glomargridding_tpu.models.kriging import OrdinaryKriging
-from glomargridding_tpu.models.lowrank import (
+from glomargridding_jax.models.kriging import OrdinaryKriging
+from glomargridding_jax.models.lowrank import (
     lowrank_ensemble_step,
     lowrank_kriging,
     lowrank_members_from_states,
 )
-from glomargridding_tpu.ops.covariance_tools import (
+from glomargridding_jax.ops.covariance_tools import (
     LowRankPSD,
     explained_variance_clip_lowrank,
 )
@@ -190,7 +190,7 @@ def test_pad_rank_is_numerically_inert(rng):
 
 def test_months_scan_matches_per_month_calls(rng):
     """One scanned program == independent per-month solves."""
-    from glomargridding_tpu.models.lowrank import lowrank_months_scan
+    from glomargridding_jax.models.lowrank import lowrank_months_scan
 
     psd = _make_psd(rng)
     T = 3
@@ -229,7 +229,7 @@ def test_months_scan_matches_per_month_calls(rng):
 
 def test_months_scan_diagnostics_off(rng):
     """diagnostics=False: identical fields/members, zeroed diagnostics."""
-    from glomargridding_tpu.models.lowrank import lowrank_months_scan
+    from glomargridding_jax.models.lowrank import lowrank_months_scan
 
     psd = _make_psd(rng)
     T = 2
@@ -262,7 +262,7 @@ def test_duplicate_obs_indices_warn(rng):
     pad-convention duplicates (huge error diagonal) stay silent."""
     import warnings
 
-    from glomargridding_tpu.models.lowrank import check_idx_unique
+    from glomargridding_jax.models.lowrank import check_idx_unique
 
     psd = _make_psd(rng)
     idx, y, E = _obs_setup(rng)
@@ -295,8 +295,8 @@ def test_woodbury_route_matches_dense_cholesky_route(rng):
     """
     import jax
 
-    from glomargridding_tpu.models.lowrank import _lowrank_solve_impl
-    from glomargridding_tpu.ops.covariance_tools import LowRankPSD
+    from glomargridding_jax.models.lowrank import _lowrank_solve_impl
+    from glomargridding_jax.ops.covariance_tools import LowRankPSD
 
     n, r, m = 400, 48, 120
     Q, _ = np.linalg.qr(rng.normal(size=(n, r)))
@@ -336,11 +336,11 @@ def test_diagonal_error_cov_as_vector(rng):
     """
     import jax
 
-    from glomargridding_tpu.models.lowrank import (
+    from glomargridding_jax.models.lowrank import (
         lowrank_ensemble_step,
         lowrank_kriging,
     )
-    from glomargridding_tpu.ops.covariance_tools import LowRankPSD
+    from glomargridding_jax.ops.covariance_tools import LowRankPSD
 
     n, r, m = 300, 32, 80
     Q, _ = np.linalg.qr(rng.normal(size=(n, r)))
@@ -375,7 +375,7 @@ def test_months_scan_stacked_diagonal_vectors(rng):
     Both take the Woodbury route with identical noise draws, so the
     results match bitwise; the vector form skips the T m^2 upload.
     """
-    from glomargridding_tpu.models.lowrank import lowrank_months_scan
+    from glomargridding_jax.models.lowrank import lowrank_months_scan
 
     psd = _make_psd(rng)
     T = 3
@@ -411,7 +411,7 @@ def test_woodbury_refinement_survives_ill_conditioning(rng):
     realistic workload). The iterative-refinement step must keep the
     f32 route within ~1e-3 of the f64 direct solve.
     """
-    from glomargridding_tpu.models.lowrank import _lowrank_solve_impl
+    from glomargridding_jax.models.lowrank import _lowrank_solve_impl
 
     n, r, m = 2000, 256, 500
     Q, _ = np.linalg.qr(rng.normal(size=(n, r)))
@@ -463,10 +463,10 @@ def test_woodbury_refinement_survives_ill_conditioning(rng):
     # at kappa ~ 1e7 each f32 route legitimately sits O(kappa * eps)
     # from the oracle (and from the other route — they factor slightly
     # different f32 perturbations of K), so the pin here is "no
-    # catastrophic loss": the pre-fix TPU failure was ~15% field error,
-    # two orders above this bound. The production-scale consistency
-    # (RMSE == uncertainty == spread for truth drawn from the model)
-    # is driver-recorded every round in bench_lowrank_65k.
+    # catastrophic loss": the pre-fix failure (reduced-precision
+    # matmuls) was ~15% field error, two orders above this bound. The
+    # production-scale consistency (RMSE == uncertainty == spread for
+    # truth drawn from the model) is checked by chip_smoke.py.
     for flag in (True, False):
         err = np.abs(np.asarray(fields[flag]) - field64).max()
         assert err < 2e-2 * scale, (flag, err, scale)
@@ -477,8 +477,8 @@ def test_lowrank_crossval_matches_bruteforce(rng):
     against the densified factors."""
     import jax.numpy as jnp
 
-    from glomargridding_tpu.models.lowrank import lowrank_crossval
-    from glomargridding_tpu.ops.covariance_tools import LowRankPSD
+    from glomargridding_jax.models.lowrank import lowrank_crossval
+    from glomargridding_jax.ops.covariance_tools import LowRankPSD
 
     n, r, m = 80, 12, 20
     Q, _ = np.linalg.qr(rng.standard_normal((n, r)))

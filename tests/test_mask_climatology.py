@@ -4,10 +4,10 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from glomargridding_tpu.core.labeled import Coordinates, DataArray, Dataset
-from glomargridding_tpu.grid import grid_from_resolution
-from glomargridding_tpu.grid.climatology import join_climatology_by_doy
-from glomargridding_tpu.grid.mask import (
+from glomargridding_jax.core.labeled import Coordinates, DataArray, Dataset
+from glomargridding_jax.grid import grid_from_resolution
+from glomargridding_jax.grid.climatology import join_climatology_by_doy
+from glomargridding_jax.grid.mask import (
     get_mask_idx,
     mask_array,
     mask_dataset,

@@ -4,10 +4,10 @@ import numpy as np
 import pandas as pd
 import pytest
 
-import glomargridding_tpu.native.gridbin as gb
-from glomargridding_tpu.grid import grid_from_resolution, map_to_grid
-from glomargridding_tpu.grid.grid import aggregate_observations
-from glomargridding_tpu.native import bin_mean, snap_to_grid
+import glomargridding_jax.native.gridbin as gb
+from glomargridding_jax.grid import grid_from_resolution, map_to_grid
+from glomargridding_jax.grid.grid import aggregate_observations
+from glomargridding_jax.native import bin_mean, snap_to_grid
 
 
 def test_snap_to_grid_matches_map_to_grid(rng):
@@ -88,7 +88,7 @@ def test_aggregate_observations(rng):
     np.testing.assert_allclose(m, ref.to_numpy())
 
     # irregular grid raises
-    from glomargridding_tpu.core.labeled import Coordinates, DataArray
+    from glomargridding_jax.core.labeled import Coordinates, DataArray
 
     irregular = DataArray(
         coords=Coordinates(

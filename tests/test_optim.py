@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 from scipy.optimize import minimize
 
-from glomargridding_tpu.ops.optim import batched_nelder_mead, nelder_mead
+from glomargridding_jax.ops.optim import batched_nelder_mead, nelder_mead
 
 
 def rosenbrock(x):
@@ -161,7 +161,7 @@ def test_maxiter_reports_failure():
 
 
 def test_lbfgs_bounded_quadratic():
-    from glomargridding_tpu.ops.optim import lbfgs_minimize
+    from glomargridding_jax.ops.optim import lbfgs_minimize
 
     def f(x):
         return jnp.sum((x - 5.0) ** 2)
@@ -180,7 +180,7 @@ def test_lbfgs_bounded_quadratic():
 
 
 def test_batched_lbfgs(rng):
-    from glomargridding_tpu.ops.optim import batched_lbfgs
+    from glomargridding_jax.ops.optim import batched_lbfgs
 
     centres = jnp.asarray(rng.uniform(-3, 3, size=(32, 3)))
 
@@ -202,7 +202,7 @@ def test_nm_matches_scipy_on_ellipse_nll(rng):
     from scipy.optimize import minimize
     from scipy.special import kv as skv
 
-    from glomargridding_tpu.models.ellipse import EllipseModel
+    from glomargridding_jax.models.ellipse import EllipseModel
 
     m = EllipseModel(
         anisotropic=True, rotated=True, physical_distance=True,
@@ -248,7 +248,7 @@ def test_lm_success_semantics(rng):
     that STARTS at its optimum both report success; a NaN-objective
     lane exits via damping saturation with success=False (it never
     accepted a step) so compute_params can mark it qc_code 9."""
-    from glomargridding_tpu.ops.optim import batched_levenberg_marquardt
+    from glomargridding_jax.ops.optim import batched_levenberg_marquardt
 
     t = jnp.linspace(0.0, 1.0, 16)
 

@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from glomargridding_tpu.models.kriging import OrdinaryKriging
-from glomargridding_tpu.parallel import (
+from glomargridding_jax.models.kriging import OrdinaryKriging
+from glomargridding_jax.parallel import (
     ensemble_kriging_step,
     make_mesh,
     sharded_ordinary_kriging,
@@ -101,12 +101,12 @@ def test_graft_entry_roundtrip():
 
 
 def test_sharded_kernel_kriging_matches_single(rng):
-    from glomargridding_tpu.models.kernel_kriging import (
+    from glomargridding_jax.models.kernel_kriging import (
         kriging_from_kernel,
         variogram_kernel,
     )
-    from glomargridding_tpu.ops.variogram import MaternVariogram
-    from glomargridding_tpu.parallel.kernel_kriging import (
+    from glomargridding_jax.ops.variogram import MaternVariogram
+    from glomargridding_jax.parallel.kernel_kriging import (
         sharded_kriging_from_kernel,
     )
 
@@ -144,7 +144,7 @@ def test_sharded_kernel_kriging_matches_single(rng):
 
 
 def test_sharded_cholesky_matches_numpy(rng):
-    from glomargridding_tpu.parallel.linalg import sharded_cholesky
+    from glomargridding_jax.parallel.linalg import sharded_cholesky
 
     n = 256
     A = rng.normal(size=(n, n))
@@ -160,7 +160,7 @@ def test_sharded_cholesky_matches_numpy(rng):
 
 
 def test_sharded_cholesky_block_count_validation(rng):
-    from glomargridding_tpu.parallel.linalg import sharded_cholesky
+    from glomargridding_jax.parallel.linalg import sharded_cholesky
 
     mesh = make_mesh(n_grid=8, n_ens=1)
     A = np.eye(100)
@@ -173,7 +173,7 @@ def test_sharded_triangular_solve_matches_lapack(rng):
     without gathering it; parity vs scipy-style dense solve."""
     import jax.scipy.linalg as jsl
 
-    from glomargridding_tpu.parallel.linalg import (
+    from glomargridding_jax.parallel.linalg import (
         sharded_cholesky,
         sharded_triangular_solve,
     )
@@ -207,15 +207,15 @@ def test_sharded_ellipse_covariance_and_draws(rng):
     Cholesky + sharded L@z draws have the right distribution."""
     import jax.numpy as jnp
 
-    from glomargridding_tpu.models.ellipse.covariance import (
+    from glomargridding_jax.models.ellipse.covariance import (
         build_ellipse_covariance,
     )
-    from glomargridding_tpu.ops.distances import sigma_rot_flat
-    from glomargridding_tpu.parallel.ellipse import (
+    from glomargridding_jax.ops.distances import sigma_rot_flat
+    from glomargridding_jax.parallel.ellipse import (
         sharded_ellipse_covariance,
         sharded_state_draws,
     )
-    from glomargridding_tpu.parallel.linalg import sharded_cholesky
+    from glomargridding_jax.parallel.linalg import sharded_cholesky
 
     n = 128
     lats = rng.uniform(-60, 60, n)
@@ -251,7 +251,7 @@ def test_sharded_ellipse_covariance_and_draws(rng):
     assert len({s.device for s in cov_sharded.addressable_shards}) == 8
 
     # PSD repair then distributed factor + draws
-    from glomargridding_tpu.ops.covariance_tools import eigenvalue_clip
+    from glomargridding_jax.ops.covariance_tools import eigenvalue_clip
 
     spd = eigenvalue_clip(ref, target_variance_fraction=0.95)
     L = sharded_cholesky(mesh, spd, n_blocks=16)
@@ -268,12 +268,12 @@ def test_sharded_lowrank_matches_single_device(rng):
     """Row-sharded factored kriging + ensemble == the local path."""
     import jax.numpy as jnp
 
-    from glomargridding_tpu.models.lowrank import (
+    from glomargridding_jax.models.lowrank import (
         lowrank_ensemble_step,
         lowrank_kriging,
     )
-    from glomargridding_tpu.ops.covariance_tools import LowRankPSD
-    from glomargridding_tpu.parallel import (
+    from glomargridding_jax.ops.covariance_tools import LowRankPSD
+    from glomargridding_jax.parallel import (
         sharded_lowrank_ensemble_step,
         sharded_lowrank_kriging,
     )
@@ -333,10 +333,10 @@ def test_clip_on_row_sharded_store(rng):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from glomargridding_tpu.ops.covariance_tools import (
+    from glomargridding_jax.ops.covariance_tools import (
         explained_variance_clip_lowrank,
     )
-    from glomargridding_tpu.ops.sampling import dense_matvec
+    from glomargridding_jax.ops.sampling import dense_matvec
 
     n, r = 256, 12
     A = rng.normal(size=(n, n))
@@ -393,12 +393,11 @@ def test_ensemble_step_non_divisible_grid(rng):
 
 def test_sharded_whiten_and_mvn_logpdf(rng):
     """The factor-once/solve-many pipeline: sharded Cholesky ->
-    whitening + Gaussian scoring, vs the dense host oracle (round-2
-    VERDICT weak #6: sharded_triangular_solve gains its production
-    consumers)."""
+    whitening + Gaussian scoring, vs the dense host oracle
+    (sharded_triangular_solve's production consumers)."""
     from scipy.stats import multivariate_normal
 
-    from glomargridding_tpu.parallel import (
+    from glomargridding_jax.parallel import (
         make_mesh,
         sharded_cholesky,
         sharded_mvn_logpdf,
@@ -435,11 +434,11 @@ def test_sharded_whiten_and_mvn_logpdf(rng):
 def test_sharded_stream_operator_parity():
     """Ring-SUMMA sharded zero-storage matvec == dense single-process
     assembly of the same Paciorek-Schervish covariance."""
-    from glomargridding_tpu.models.ellipse.covariance import (
+    from glomargridding_jax.models.ellipse.covariance import (
         ellipse_covariance_block,
     )
-    from glomargridding_tpu.ops.distances import sigma_rot_flat
-    from glomargridding_tpu.parallel.ellipse import (
+    from glomargridding_jax.ops.distances import sigma_rot_flat
+    from glomargridding_jax.parallel.ellipse import (
         sharded_ellipse_stream_operator,
     )
 
@@ -494,15 +493,15 @@ def test_sharded_stream_clip_matches_dense_clip():
     """The device-scale explained-variance clip runs UNCHANGED on the
     row-sharded stream operator (fused stages, deflated widening) and
     reproduces the full-LAPACK dense clip."""
-    from glomargridding_tpu.models.ellipse.covariance import (
+    from glomargridding_jax.models.ellipse.covariance import (
         ellipse_covariance_block,
     )
-    from glomargridding_tpu.ops.covariance_tools import (
+    from glomargridding_jax.ops.covariance_tools import (
         explained_variance_clip,
         explained_variance_clip_lowrank,
     )
-    from glomargridding_tpu.ops.distances import sigma_rot_flat
-    from glomargridding_tpu.parallel.ellipse import (
+    from glomargridding_jax.ops.distances import sigma_rot_flat
+    from glomargridding_jax.parallel.ellipse import (
         sharded_ellipse_stream_operator,
     )
 
@@ -558,7 +557,7 @@ def test_sharded_compute_params_matches_single(rng):
     shared iteration counter may differ per shard."""
     from test_ellipse import _synthetic_builder
 
-    from glomargridding_tpu.models.ellipse import EllipseModel
+    from glomargridding_jax.models.ellipse import EllipseModel
 
     builder, lats, lons = _synthetic_builder(rng, size=(8, 10), n=1500)
     iso = EllipseModel(
@@ -595,7 +594,7 @@ def test_sharded_compute_params_rounds_chunk(rng):
     a warning) instead of failing inside shard_map."""
     from test_ellipse import _synthetic_builder
 
-    from glomargridding_tpu.models.ellipse import EllipseModel
+    from glomargridding_jax.models.ellipse import EllipseModel
 
     builder, _, _ = _synthetic_builder(rng, size=(4, 6), n=600)
     iso = EllipseModel(
@@ -624,7 +623,7 @@ def test_sharded_compute_params_subchunk_grid(rng):
     shard_map's divisibility check."""
     from test_ellipse import _synthetic_builder
 
-    from glomargridding_tpu.models.ellipse import EllipseModel
+    from glomargridding_jax.models.ellipse import EllipseModel
 
     builder, _, _ = _synthetic_builder(rng, size=(3, 6), n=600)
     iso = EllipseModel(
@@ -655,7 +654,7 @@ def test_sharded_fit_with_groups_and_checkpoint(rng, tmp_path):
     refitting."""
     from test_ellipse import _synthetic_builder
 
-    from glomargridding_tpu.models.ellipse import EllipseModel
+    from glomargridding_jax.models.ellipse import EllipseModel
 
     builder, _, _ = _synthetic_builder(rng, size=(8, 10), n=1200)
     iso = EllipseModel(
@@ -695,13 +694,13 @@ def test_ensemble_step_per_device_memory_is_o_shard():
     """Per-device peak of the FULL compiled ensemble step stays O(shard)
     (~4.1 row-shards measured), never O(full matrix): pins the
     no-device-holds-the-matrix design against GSPMD all-gather
-    regressions (VERDICT r3 weak #5). Also checks the peak/shard ratio
+    regressions. Also checks the peak/shard ratio
     is flat across grid-axis sizes — an all-gather would make it grow
     linearly with the axis."""
     import jax
 
-    from glomargridding_tpu.parallel import make_mesh
-    from glomargridding_tpu.parallel.kriging import (
+    from glomargridding_jax.parallel import make_mesh
+    from glomargridding_jax.parallel.kriging import (
         ensemble_step_memory_analysis,
     )
 

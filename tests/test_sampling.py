@@ -5,7 +5,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from glomargridding_tpu.ops.sampling import (
+from glomargridding_jax.ops.sampling import (
     chebyshev_apply,
     chebyshev_sqrt_coeffs,
     dense_matvec,
@@ -144,7 +144,7 @@ def test_chebyshev_accepts_plain_closure(rng):
     """Back-compat: a bare callable matvec (no Matvec wrapper) works."""
     import jax.numpy as jnp
 
-    from glomargridding_tpu.ops.sampling import (
+    from glomargridding_jax.ops.sampling import (
         Matvec,
         chebyshev_apply,
         chebyshev_sqrt_coeffs,

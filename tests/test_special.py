@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 from scipy.special import kv as scipy_kv
 
-from glomargridding_tpu.ops.special import kv, kv_nan_guard
+from glomargridding_jax.ops.special import kv, kv_nan_guard
 
 X = np.concatenate(
     [np.linspace(1e-4, 2.0, 200), np.linspace(2.001, 60.0, 200)]
@@ -47,7 +47,7 @@ def test_kv_negative_order_symmetry():
 
 @pytest.mark.parametrize("v", [0.5, 1.5, 2.5, 3.5])
 def test_xv_kv_half_integer_matches_product(v):
-    from glomargridding_tpu.ops.special import xv_kv_half_integer
+    from glomargridding_jax.ops.special import xv_kv_half_integer
 
     ours = np.asarray(xv_kv_half_integer(v, jnp.asarray(X, jnp.float64)))
     ref = X**v * scipy_kv(v, X)
@@ -60,7 +60,7 @@ def test_xv_kv_half_integer_matches_product(v):
 
 
 def test_xv_kv_rejects_non_half_integer():
-    from glomargridding_tpu.ops.special import xv_kv_half_integer
+    from glomargridding_jax.ops.special import xv_kv_half_integer
 
     with pytest.raises(ValueError):
         xv_kv_half_integer(1.2, jnp.asarray(X))

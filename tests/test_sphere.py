@@ -3,7 +3,7 @@
 import jax
 import numpy as np
 
-from glomargridding_tpu.ops.sphere import (
+from glomargridding_jax.ops.sphere import (
     SphericalHarmonicSampler,
     angular_power,
     legendre_table,
@@ -125,7 +125,7 @@ def test_draw_counts_share_one_compiled_program():
     one signature for every count <= member_batch (and one dispatch,
     never a per-batch host loop, for larger counts).
     """
-    from glomargridding_tpu.ops import sphere
+    from glomargridding_jax.ops import sphere
 
     lats = np.arange(-60.0, 61.0, 30.0)
     lons = np.arange(-180.0, 180.0, 60.0)
@@ -172,7 +172,7 @@ def test_device_legendre_table_matches_f64_oracle():
     """
     import jax.numpy as jnp
 
-    from glomargridding_tpu.ops.sphere import _legendre_table_device
+    from glomargridding_jax.ops.sphere import _legendre_table_device
 
     lats = np.arange(-89.5, 90.0, 1.0)
     L = 256

@@ -4,7 +4,7 @@ import numpy as np
 import pandas as pd
 import pytest
 
-from glomargridding_tpu.utils import (
+from glomargridding_jax.utils import (
     adjust_small_negative,
     batched,
     cor_2_cov,
@@ -20,7 +20,7 @@ from glomargridding_tpu.utils import (
     sizeof_fmt,
     uncompress_masked,
 )
-from glomargridding_tpu.utils.frames import get_recurse
+from glomargridding_jax.utils.frames import get_recurse
 
 
 def test_find_nearest():
@@ -154,7 +154,7 @@ def test_sizeof_fmt():
 def test_bounded_cache_lru():
     """BoundedCache: setdefault/get refresh recency; eviction drops the
     least-recently-used entry at maxsize."""
-    from glomargridding_tpu.utils.cache import BoundedCache
+    from glomargridding_jax.utils.cache import BoundedCache
 
     c = BoundedCache(2)
     assert c.setdefault("a", 1) == 1

@@ -5,12 +5,12 @@ import pytest
 from scipy.special import gamma as scipy_gamma
 from scipy.special import kv as scipy_kv
 
-from glomargridding_tpu.grid import (
+from glomargridding_jax.grid import (
     grid_from_resolution,
     grid_to_distance_matrix,
 )
-from glomargridding_tpu.core.labeled import DataArray
-from glomargridding_tpu.ops.variogram import (
+from glomargridding_jax.core.labeled import DataArray
+from glomargridding_jax.ops.variogram import (
     ExponentialVariogram,
     GaussianVariogram,
     MaternVariogram,

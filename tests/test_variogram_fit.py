@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from glomargridding_tpu.ops.distances import haversine_matrix
-from glomargridding_tpu.ops.variogram import MaternVariogram
-from glomargridding_tpu.ops.variogram_fit import (
+from glomargridding_jax.ops.distances import haversine_matrix
+from glomargridding_jax.ops.variogram import MaternVariogram
+from glomargridding_jax.ops.variogram_fit import (
     fit_variogram_mle,
     gp_negative_log_likelihood,
 )

@@ -56,7 +56,7 @@ def test_hadsst_workflow_reduced():
 def test_profiling_helpers():
     import jax.numpy as jnp
 
-    from glomargridding_tpu.utils.profiling import (
+    from glomargridding_jax.utils.profiling import (
         hbm_budget_check,
         hbm_estimate,
         stage_timer,

@@ -4,8 +4,8 @@ The repo's real gate is ruff (``pyproject.toml [tool.ruff]``: E, F, W,
 I, S, C90 at line-length 80) run by CI and pre-commit. The build
 environment for this project cannot install packages, so this script
 re-implements the mechanically-checkable subset with ast/tokenize only
-and is run as ``python tools/minilint.py`` to keep a recorded clean run
-(VERDICT r4 ask #7). It intentionally under-approximates ruff — rules
+and is run as ``python tools/minilint.py`` to keep a recorded clean
+run. It intentionally under-approximates ruff — rules
 needing full name resolution (undefined names, import sorting) are out
 of scope — so a clean minilint run does NOT guarantee a clean ruff run,
 but every finding it DOES emit is a real one.
@@ -39,7 +39,7 @@ TYPOS = {
     "compatability", "explict", "dimenion", "funtion", "retured",
 }
 
-ROOTS = ("glomargridding_tpu", "tests", "examples", "tools")
+ROOTS = ("glomargridding_jax", "tests", "examples", "tools")
 TOP_FILES = ("bench.py", "bench_reference_configs.py",
              "__graft_entry__.py", "setup_native.py")
 
